@@ -17,6 +17,16 @@ def mesh1():
 
 
 @pytest.fixture
+def gpu_mesh():
+    """A one-GPU mesh; skips where the tests run without a GPU."""
+    from tpusolve.mesh import make_mesh
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: JAX_PLATFORMS=cuda python -m pytest "
+                    "-m chip tests/")
+    return make_mesh(1)
+
+
+@pytest.fixture
 def rng():
     return np.random.default_rng(1234)
 

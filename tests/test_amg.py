@@ -438,8 +438,8 @@ class TestAggressiveAndSmoothers:
 
 
 class TestSmootherDtype:
-    """smoother_dtype: bfloat16 — reduced-precision smoother twin (TPU
-    extension; halves smoother HBM reads).  Preconditioner quality may
+    """smoother_dtype: bfloat16 — reduced-precision smoother twin
+    (extension; halves smoother memory reads).  Preconditioner quality may
     cost a few Krylov iterations, never correctness."""
 
     def test_bf16_twin_converges(self, mesh1):

@@ -2,6 +2,8 @@
 
 The role the reference fills with vendor SpMV on file-loaded (unstructured)
 systems (ref: src/main.cpp:137-145; readers src/HypreSystem.cpp:1021-1969).
+The fixtures fill whole (8, 128) tiles, where BELL streams fewer bytes
+than padded ELL and BDIA and so is the layout the selector takes.
 """
 
 import numpy as np
@@ -15,19 +17,20 @@ from tpusolve.matrix.vectors import to_device_vector, from_device_vector
 from tpusolve.kernels import bell
 
 
-def _banded_unstructured(rng, n, bw=300, per_row=10):
-    """Random banded matrix: DIA-ineligible (too many distinct offsets),
-    mesh-like column locality (the post-RCM shape BELL targets)."""
-    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
-    jitter = rng.integers(-bw, bw + 1, size=n * per_row)
-    cols = np.clip(rows + jitter, 0, n - 1)
-    vals = rng.standard_normal(n * per_row)
-    rows = np.concatenate([rows, np.arange(n)])
-    cols = np.concatenate([cols, np.arange(n)])
-    vals = np.concatenate([vals, np.full(n, 4.0 * per_row)])
-    key = rows * n + cols
-    _, idx = np.unique(key, return_index=True)
-    return rows[idx], cols[idx], vals[idx]
+def _dense_tiles(rng, n):
+    """Dense diagonal 128 x 128 blocks: DIA-ineligible (255 offsets), and
+    where the shards start on a block boundary every (8, 128) tile is full,
+    which makes BELL the layout that streams the fewest bytes."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), bell.TN)
+    cols = rows // bell.TN * bell.TN + np.tile(np.arange(bell.TN), n)
+    keep = cols < n
+    rows, cols = rows[keep], cols[keep]
+    return rows, cols, rng.standard_normal(rows.size)
+
+
+# uneven row count on one device (a padded 8-row group); on eight devices
+# 4096 rows keep each shard's start on a tile boundary
+N_FOR = {"mesh1": 4003, "mesh8": 4096}
 
 
 class TestBellKernel:
@@ -50,33 +53,13 @@ class TestBellKernel:
             jnp.asarray(vals), jnp.asarray(ids), jnp.asarray(x), nwin, n))
         np.testing.assert_allclose(y[:n], A @ x, rtol=1e-10, atol=1e-10)
 
-    def test_pallas_interpret_matches_xla(self, rng):
-        n, m = 256, 384
-        lr = rng.integers(0, n, 3000)
-        lc = rng.integers(0, m, 3000)
-        v = rng.standard_normal(3000)
-        key = lr * m + lc
-        _, idx = np.unique(key, return_index=True)
-        lr, lc, v = lr[idx], lc[idx], v[idx]
-        k = bell.bell_plan_k(lr, lc, n)
-        vals, ids = bell.bell_from_entries(lr, lc, v, n, m, k,
-                                           dtype=np.float32)
-        x = rng.standard_normal(m).astype(np.float32)
-        nwin = (m + bell.TN - 1) // bell.TN
-        y_xla = bell.bell_spmv_local(jnp.asarray(vals), jnp.asarray(ids),
-                                     jnp.asarray(x), nwin, n)
-        y_pl = bell.bell_spmv_pallas(jnp.asarray(vals), jnp.asarray(ids),
-                                     jnp.asarray(x), nwin, n, interpret=True)
-        np.testing.assert_allclose(np.asarray(y_pl), np.asarray(y_xla),
-                                   rtol=1e-6, atol=1e-6)
-
 
 class TestBellSharded:
     @pytest.mark.parametrize("nparts_fixture", ["mesh1", "mesh8"])
     def test_spmv_matches_scipy(self, request, rng, nparts_fixture):
         mesh = request.getfixturevalue(nparts_fixture)
-        n = 4003                      # uneven: padded-row invariant
-        rows, cols, vals = _banded_unstructured(rng, n)
+        n = N_FOR[nparts_fixture]
+        rows, cols, vals = _dense_tiles(rng, n)
         assert rows.size >= BELL_MIN_NNZ
         A = ShardedMatrix.from_coo(mesh, (n, n), rows, cols, vals,
                                    dtype=np.float64, allow_bdia=False)
@@ -89,8 +72,8 @@ class TestBellSharded:
         np.testing.assert_allclose(y, As @ x, rtol=1e-10, atol=1e-10)
 
     def test_to_scipy_roundtrip(self, rng, mesh8):
-        n = 4003
-        rows, cols, vals = _banded_unstructured(rng, n)
+        n = N_FOR["mesh8"]
+        rows, cols, vals = _dense_tiles(rng, n)
         A = ShardedMatrix.from_coo(mesh8, (n, n), rows, cols, vals,
                                    dtype=np.float64, allow_bdia=False)
         assert A.uses_bell
@@ -99,8 +82,8 @@ class TestBellSharded:
                                    rtol=1e-12, atol=1e-12)
 
     def test_astype_casts_bell(self, rng, mesh8):
-        n = 4003
-        rows, cols, vals = _banded_unstructured(rng, n)
+        n = N_FOR["mesh8"]
+        rows, cols, vals = _dense_tiles(rng, n)
         A = ShardedMatrix.from_coo(mesh8, (n, n), rows, cols, vals,
                                    dtype=np.float64, allow_bdia=False)
         A32 = A.astype(np.float32)
@@ -108,11 +91,11 @@ class TestBellSharded:
 
     def test_allow_bell_false_falls_back_to_ell(self, rng, mesh8):
         n = 4003
-        rows, cols, vals = _banded_unstructured(rng, n)
+        rows, cols, vals = _dense_tiles(rng, n)
         A = ShardedMatrix.from_coo(mesh8, (n, n), rows, cols, vals,
                                    dtype=np.float64, allow_bell=False,
                                    allow_bdia=False)
-        assert not A.uses_bell
+        assert not A.uses_bell and A.layout == "ell"
         As = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
         x = rng.standard_normal(n)
         xd = to_device_vector(mesh8, x, A.col_offsets, A.col_pad,

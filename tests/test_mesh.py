@@ -54,44 +54,51 @@ def test_3d_distribution_near_cubic():
 
 
 class TestInitDistributed:
-    """Regression tests for the round-2 CLI breakage: single-host TPU VMs
-    set TPU_WORKER_HOSTNAMES=localhost with no coordinator; init must not
-    fire jax.distributed.initialize() there (VERDICT r2 weak #1)."""
+    """Multi-process init keys off JAX_COORDINATOR_ADDRESS alone: no
+    coordinator means one process; a coordinator means initialize, and a
+    failed initialization raises instead of continuing single-process."""
 
-    def test_single_host_hostnames_is_noop(self, monkeypatch):
+    def test_no_coordinator_is_noop(self, monkeypatch):
         from tpusolve.mesh import init_distributed
         monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-        monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
         assert init_distributed() is False
 
-    def test_no_env_is_noop(self, monkeypatch):
-        from tpusolve.mesh import init_distributed
-        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-        monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-        assert init_distributed() is False
-
-    def test_live_backend_skips_multihost(self, monkeypatch):
-        # Multi-host env vars but backend already initialized (as in any
-        # library/test use): must decline rather than raise.
+    def test_live_backend_skips_multiprocess(self, monkeypatch):
+        # coordinator given but the backend is already up (library use,
+        # tests): too late to join, so decline rather than raise
         import jax
         jax.devices()  # force backend up
         from tpusolve.mesh import init_distributed
-        monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host0,host1")
         monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:9999")
         assert init_distributed() is False
 
-    def test_cli_with_hostnames_set(self, mesh8, tmp_path, capsys,
-                                    monkeypatch):
-        # The exact round-2 failure mode: CLI run with the env var present.
-        from tests.test_harness import _write_mm_system, BASE_YAML
-        monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-        _write_mm_system(tmp_path)
-        cfg_file = tmp_path / "run.yaml"
-        cfg_file.write_text(BASE_YAML.format(
-            mat=tmp_path / "A.mm", rhs=tmp_path / "b.mm",
-            sln=tmp_path / "x.mm", method="cg", precond="none"))
-        from tpusolve.harness import cli
-        rc = cli.main([str(cfg_file)])
-        assert rc == 0
-        assert "Check solution: PASSED" in capsys.readouterr().out
+    def test_coordinator_env_is_passed(self, monkeypatch):
+        import jax
+        from jax._src import xla_bridge
+        from tpusolve.mesh import init_distributed
+        calls = []
+        monkeypatch.setattr(xla_bridge, "backends_are_initialized",
+                            lambda: False)
+        monkeypatch.setattr(jax.distributed, "initialize",
+                            lambda **kw: calls.append(kw))
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:7777")
+        monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+        monkeypatch.setenv("JAX_PROCESS_ID", "2")
+        assert init_distributed() is True
+        assert calls == [dict(coordinator_address="localhost:7777",
+                              num_processes=4, process_id=2)]
+
+    def test_failed_init_raises(self, monkeypatch):
+        import jax
+        from jax._src import xla_bridge
+        from tpusolve.mesh import init_distributed
+
+        def refuse(**kw):
+            raise RuntimeError("coordinator unreachable")
+
+        monkeypatch.setattr(xla_bridge, "backends_are_initialized",
+                            lambda: False)
+        monkeypatch.setattr(jax.distributed, "initialize", refuse)
+        monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:7777")
+        with pytest.raises(RuntimeError, match="unreachable"):
+            init_distributed()

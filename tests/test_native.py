@@ -235,3 +235,36 @@ class TestSetupKernels:
             active = state == Co.UNDECIDED
         state[state == Co.UNDECIDED] = Co.C_PT
         assert np.array_equal(sn, state)
+
+
+class TestBuildKey:
+    """Native binaries are keyed by source, command and host CPU, so one
+    built elsewhere is never loaded."""
+
+    def test_key_depends_on_cpu_command_and_source(self, tmp_path):
+        from tpusolve.native import build
+        src = tmp_path / "k.cpp"
+        src.write_text("int f() { return 1; }\n")
+        cmd = ["g++", "-O3", str(src), "-o", "{out}"]
+        k = build.build_key(str(src), cmd)
+        assert k == build.build_key(str(src), cmd, cpu=build.host_cpu())
+        assert k != build.build_key(str(src), cmd, cpu="other cpu")
+        assert k != build.build_key(str(src), cmd + ["-march=native"])
+        src.write_text("int f() { return 2; }\n")
+        assert k != build.build_key(str(src), cmd)
+
+    def test_foreign_binary_is_not_loaded(self, tmp_path, monkeypatch):
+        from tpusolve.native import build
+        src = tmp_path / "k.cpp"
+        src.write_text('extern "C" int f() { return 7; }\n')
+        monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+        cmd = ["g++", "-shared", "-fPIC", str(src), "-o", "{out}"]
+        # a binary at the key of another CPU (garbage: loading it fails)
+        foreign = (tmp_path / "_build"
+                   / f"k-{build.build_key(str(src), cmd, cpu='other')}")
+        foreign.mkdir(parents=True)
+        (foreign / "libk.so").write_bytes(b"not a library")
+        path = build._keyed_build("k", str(src), [cmd], "libk.so")
+        assert path is not None and str(foreign) not in path
+        import ctypes
+        assert ctypes.CDLL(path).f() == 7

@@ -17,14 +17,22 @@ def _fixtures():
         return json.load(fh)["fixtures"]
 
 
-@pytest.mark.parametrize("fx", _fixtures(), ids=lambda fx: fx["name"])
-def test_parity_fixture(fx, mesh8):
-    import jax
-    if fx.get("tpu_only") and jax.devices()[0].platform == "cpu":
-        pytest.skip(">=2M-row fixture: TPU runs only (tools/parity.py --tpu)")
+def _check(fx, mesh):
     from tools.parity import run_fixture
-    iters, converged = run_fixture(fx, mesh8)
+    iters, converged = run_fixture(fx, mesh)
     assert converged
     assert iters <= fx["budget_iters"], (
         f"{fx['name']}: {iters} iters > budget {fx['budget_iters']} "
         f"(recorded BoomerAMG expectation {fx['expected_iters']})")
+
+
+@pytest.mark.parametrize("fx", [
+    pytest.param(fx, marks=pytest.mark.chip) if fx.get("chip") else fx
+    for fx in _fixtures()], ids=lambda fx: fx["name"])
+def test_parity_fixture(fx, request):
+    # >=2M-row fixtures run on one GPU (tools/parity.py --chip), the rest
+    # on the 8-device CPU mesh
+    if fx.get("chip"):
+        _check(fx, request.getfixturevalue("gpu_mesh"))
+    else:
+        _check(fx, request.getfixturevalue("mesh8"))

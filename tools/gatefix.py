@@ -46,6 +46,30 @@ def _box_27pt_graph(nx: int, ny: int, nz: int):
             np.concatenate(kinds), n)
 
 
+def clustered_band(n: int, seed: int = 11):
+    """(rows, cols, vals) of an n x n clustered-band graph: 7 offset
+    clusters (-n^(2/3), -n^(1/3), -1, 0, 1, n^(1/3), n^(2/3) for a cube
+    side n^(1/3)), each 3 wide, drifting slowly with the row — a
+    DIA-ineligible, RCM-like profile (the shape of a reordered file-loaded
+    mesh system).  Values are standard normal."""
+    side = round(n ** (1.0 / 3.0))
+    rng = np.random.default_rng(seed)
+    rr = np.arange(n, dtype=np.int64)
+    drift = (60 * np.sin(rr / (n / 8.0))).astype(np.int64)
+    rows, cols = [], []
+    for base in (-side * side, -side, -1, 0, 1, side, side * side):
+        for dd in (-1, 0, 1):
+            c = rr + base + drift + dd
+            ok = (c >= 0) & (c < n)
+            rows.append(rr[ok])
+            cols.append(c[ok])
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = rng.standard_normal(rows.size)
+    _, idx = np.unique(rows * n + cols, return_index=True)
+    return rows[idx], cols[idx], vals[idx]
+
+
 def make_system(nx: int = 64, ny: int = 64, nz: int = 64, *,
                 seed: int = 7, nonsym: float = 0.0, permute: bool = True):
     """(rows, cols, vals, b, n) with b = A @ 1 and x_ref = 1.

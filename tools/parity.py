@@ -11,7 +11,8 @@ Usage:
     python tools/parity.py                  # print the table
     python tools/parity.py --write-readme   # refresh the README section
 
-Run on CPU (8 virtual devices) or TPU; fixtures are small by design.
+Runs on the CPU (8 virtual devices); ``--chip`` runs on the GPU instead,
+where the fixtures marked ``chip`` (>=2M rows) run too.
 """
 
 from __future__ import annotations
@@ -31,14 +32,15 @@ MARK_BEGIN = "<!-- parity-table-begin -->"
 MARK_END = "<!-- parity-table-end -->"
 
 
-def _ensure_cpu_mesh():
-    if "--tpu" not in sys.argv:
+def _select_backend(chip: bool):
+    import jax
+    if chip:
+        if jax.devices()[0].platform != "gpu":
+            raise SystemExit("--chip: no GPU found")
+    else:
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8")
-        import jax
-        if not jax._src.xla_bridge._backends:
-            jax.config.update("jax_platforms", "cpu")
-    import jax
+        jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 
@@ -59,7 +61,7 @@ def run_fixture(fx: dict, mesh):
 
     if name.startswith("laplace27"):
         dims = fx.get("dims", [8, 8, 8])
-        dt = np.float32 if fx.get("tpu_only") else np.float64
+        dt = np.float32 if fx.get("chip") else np.float64
         A, b, _ = laplace27(mesh, *dims, dtype=dt)
         A_host = None
     else:
@@ -91,24 +93,10 @@ def run_fixture(fx: dict, mesh):
     return int(res.iters), bool(res.converged)
 
 
-def _existing_row(name: str) -> str | None:
-    """The fixture's current row in the README parity table, if any."""
-    try:
-        with open(README) as fh:
-            text = fh.read()
-        block = text.split(MARK_BEGIN, 1)[1].split(MARK_END, 1)[0]
-    except (OSError, IndexError):
-        return None
-    for ln in block.splitlines():
-        if ln.startswith(f"| {name} |") and ln.count("|") >= 8:
-            return ln
-    return None
-
-
 def build_table() -> str:
     from tpusolve.mesh import make_mesh
     import jax
-    on_tpu = jax.devices()[0].platform != "cpu"
+    on_chip = jax.devices()[0].platform == "gpu"
     mesh = make_mesh(min(8, len(jax.devices())))
     with open(EXPECTED) as fh:
         doc = json.load(fh)
@@ -120,18 +108,11 @@ def build_table() -> str:
     ]
     ok_all = True
     for fx in doc["fixtures"]:
-        if fx.get("tpu_only") and not on_tpu:
-            # retain the last TPU-generated row instead of silently
-            # shrinking the table (VERDICT r4 weak #2a: a CPU regeneration
-            # dropped the flagship 128^3 row)
-            kept = _existing_row(fx["name"])
-            if kept is not None:
-                lines.append(kept if "retained" in kept else
-                             kept[:-1] + " (retained from last TPU run) |")
-                print(lines[-1], flush=True)
-            else:
-                print(f"| {fx['name']} | (skipped: TPU-only fixture) |",
-                      flush=True)
+        if fx.get("chip") and not on_chip:
+            lines.append(f"| {fx['name']} | {fx['solver']} | "
+                         f"{fx['expected_iters']} | {fx['budget_iters']} | "
+                         "not run (GPU only) | | |")
+            print(lines[-1], flush=True)
             continue
         iters, conv = run_fixture(fx, mesh)
         exp, budget = fx["expected_iters"], fx["budget_iters"]
@@ -148,10 +129,10 @@ def build_table() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--write-readme", action="store_true")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) backend")
+    ap.add_argument("--chip", action="store_true",
+                    help="run on the GPU, chip-only fixtures included")
     args = ap.parse_args()
-    _ensure_cpu_mesh()
+    _select_backend(args.chip)
     table, ok = build_table()
     print(table)
     if args.write_readme:

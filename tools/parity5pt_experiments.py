@@ -2,7 +2,7 @@
 
 laplace5pt_64x64_pcg_amg records expected 8 iterations (BoomerAMG,
 hybrid-GS V(1,1)); the l1-Jacobi substitution achieved 12 (1.50x).  This
-sweep tries the TPU-friendly alternatives the verdict names — CF-ordered
+sweep tries the data-parallel alternatives — CF-ordered
 l1-Jacobi (relax_order 1), Chebyshev 1st kind (orders 2/3), Chebyshev
 4th kind (Lottes), V(2,2), plain weighted Jacobi — and prints achieved
 iterations for each so parity_expected.json can record the best attempt.

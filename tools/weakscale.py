@@ -1,18 +1,17 @@
 """Weak-scaling benchmark on the virtual multi-device mesh.
 
 The gate-2 shape (BASELINE.md): one 27-pt box per device, GMRES+Chebyshev-
-AMG-style work, scaled by adding devices.  On this box there is one real TPU
-chip, so scaling evidence comes from the same `shard_map` program on an
-N-device virtual CPU mesh (`--xla_force_host_platform_device_count`), which
-exercises the real halo `all_to_all` and `psum` paths.
+AMG-style work, scaled by adding devices.  It runs the same `shard_map`
+program on real devices or on an N-device virtual CPU mesh
+(`--xla_force_host_platform_device_count`), which exercises the real halo
+`all_to_all` and `psum` paths.
 
-CAVEAT (read before quoting numbers): this box has ONE physical CPU core,
-so the N virtual devices execute serially — "weak scaling" degrades ~1/N by
-construction, comm shares are inflated, and overlap cannot materialize
-(there is no second execution unit).  What this artifact demonstrates is
+CAVEAT (read before quoting numbers): on the virtual CPU mesh the N devices
+share the host's cores — "weak scaling" degrades by construction, comm
+shares are inflated, and overlap cannot materialize.  There the output is
 functional: the multi-device program compiles, runs, produces identical
 results with overlap on/off, and the comm/compute split is measurable.
-Real ratios require real multi-chip ICI.
+Real ratios need real cards.
 
 Reports, per device count:
   - SpMV time/box, interior-only SpMV time/box (comm share = 1 - ratio)

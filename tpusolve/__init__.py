@@ -1,13 +1,14 @@
-"""tpusolve — a TPU-native distributed sparse linear solver framework.
+"""tpusolve — a distributed sparse linear solver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability set of the
+A from-scratch JAX/XLA rebuild of the capability set of the
 Exawind/hypre-mini-app benchmark driver (reference: /root/reference), which
 delegates its numerics to LLNL HYPRE.  Here the full solve path — sharded
-ParCSR-analog sparse matrices, halo exchange over ICI, Krylov solvers
+ParCSR-analog sparse matrices, halo exchange between devices, Krylov solvers
 (PCG/GMRES/COGMRES/FlexGMRES/BiCGSTAB), BoomerAMG-style algebraic multigrid,
-and ILU smoothing — is implemented natively for TPU:
+and ILU smoothing — is implemented as jitted device programs:
 
-* compute path: jitted JAX + Pallas kernels over padded-ELL tiles,
+* compute path: jitted JAX over DIA, blocked-DIA, block-ELL and padded-ELL
+  layouts,
 * distribution: ``jax.sharding.Mesh`` + ``shard_map`` with XLA collectives
   (``psum`` for dot products, ``all_to_all`` for halo exchange) in place of
   the reference's MPI (ref: src/main.cpp:33-35),

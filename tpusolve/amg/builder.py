@@ -1,6 +1,6 @@
 """BoomerAMG-equivalent multilevel hierarchy: setup + jitted cycles.
 
-TPU-native replacement for ``HYPRE_BoomerAMG{Create,Setup,Solve}`` and the
+JAX replacement for ``HYPRE_BoomerAMG{Create,Setup,Solve}`` and the
 ~45-key setter surface the reference drives (src/HypreSystem.cpp:91-326).
 
 Split of labor (SURVEY.md section 7 "hard parts"):
@@ -104,8 +104,7 @@ class AMGPreconditioner:
               maxiter: int | None = None) -> SolveResult:
         """Standalone AMG iteration (reference method ``boomeramg``,
         src/HypreSystem.cpp:91-117): stationary cycles until tol, as one
-        jitted while_loop (op-by-op dispatch is prohibitively slow on
-        remote TPU backends)."""
+        jitted while_loop (no op-by-op dispatch)."""
         cfg = self.config
         tol = cfg.tolerance if tol is None else tol
         maxiter = cfg.max_iterations if maxiter is None else maxiter
@@ -234,7 +233,7 @@ def boomeramg_setup(A: ShardedMatrix, config: BoomerAMGConfig | None = None,
         return Ah
 
     # --- device fine-level setup (amg/device_setup.py): DIA operators run
-    # strength/PMIS/interp/RAP on the TPU — the analog of the reference's
+    # strength/PMIS/interp/RAP on the device — the analog of the reference's
     # on-device BoomerAMGSetup (src/HypreSystem.cpp:692) — and hand the 8x
     # smaller coarse level back to this host pipeline.  Also the only path
     # that never needs the fine host CSR (north-star problem sizes).
@@ -457,8 +456,8 @@ def _coarse_solver_data(mesh, Ah, A_sh, dtype, kind_coarse):
 
 def _relax_twin(A_sh: ShardedMatrix, cfg) -> ShardedMatrix | None:
     """bfloat16 smoother twin (``smoother_dtype: bfloat16``): halves the
-    smoother matvecs' HBM reads.  Only for XLA-executed layouts — the
-    Pallas BDIA/BELL kernels are dtype-specialized for f32."""
+    smoother matvecs' memory reads.  Only for DIA and ELL layouts: the
+    tile layouts (BDIA/BELL) keep the solve dtype."""
     if getattr(cfg, "smoother_dtype", "match") != "bfloat16":
         return None
     if A_sh.uses_bdia or A_sh.uses_bell:
@@ -594,7 +593,8 @@ def _build_cycle(pre: AMGPreconditioner, kind_down, kind_up,
                     # num_coarse_sweeps, ref: src/HypreSystem.cpp:129-151)
                     return smooth(lev, b, x, kind_coarse, coarse_sweeps)
                 rr = b - spmv(lev.A, x)
-                return x + coarse_inv @ rr
+                return x + jnp.dot(coarse_inv, rr,
+                                   precision=jax.lax.Precision.HIGHEST)
             x = smooth(lev, b, x, kind_down, nu_down)
             rr = b - spmv(lev.A, x)
             rc = lev.restrict(rr) if lev.R is None else spmv(lev.R, rr)

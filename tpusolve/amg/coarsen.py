@@ -1,6 +1,6 @@
 """C/F splitting (coarsening).
 
-TPU-native coarsening policy for the ``coarsen_type`` codes the reference
+Coarsening policy for the ``coarsen_type`` codes the reference
 exposes (src/HypreSystem.cpp:125-126; default 8 = PMIS, yaml example 6 =
 Falgout).  PMIS (parallel modified independent set, De Sterck-Yang-Heys) is
 the data-parallel algorithm — every step is a neighborhood max, which is the
@@ -177,5 +177,5 @@ def coarsen(S: sp.csr_matrix, coarsen_type: int = 8, seed: int = 1234):
     if coarsen_type not in (8,):
         note = (f"coarsen_type {coarsen_type} mapped to PMIS "
                 "(CLJP-family independent-set coarsening, "
-                "data-parallel TPU policy)")
+                "data-parallel policy)")
     return pmis(S, seed=seed), note

@@ -11,7 +11,7 @@ module runs the same fine-level pipeline — strength -> PMIS -> direct
 interpolation -> Galerkin RAP — for an arbitrary padded-ELL operator
 sharded over a multi-device mesh.
 
-Design (TPU-first, SPMD under ``shard_map``):
+Design (SPMD under ``shard_map``):
 
 * every per-part row block works in an **extended local index space**
   ``[0, row_pad) ∪ [row_pad, row_pad + G) ∪ {DEAD}``: local rows first,
@@ -71,22 +71,12 @@ from tpusolve.amg.device_setup_ell import (_pack_transpose, _run_counts,
                                            _pack_runs, _I32_MAX, PACK_W,
                                            MAX_ELL_K)
 
-try:
-    _shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-
 def shard_map(fn, *, mesh, in_specs, out_specs):
     """shard_map with the varying-manual-axes check off: the setup kernels
     build zero-initialized fori_loop carries inside the shard (unvarying
     by construction) that the loop bodies then mix with varying data."""
-    try:
-        return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover (older jax: check_rep)
-        return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_rep=False)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def _pow2ceil(x: int) -> int:
@@ -556,7 +546,8 @@ def _interp_classical_mp(mesh, axis, vals, ecols, S, state, cmapg, sidx,
                           == jnp.arange(Kc, dtype=jnp.int32)[None, None,
                                                              :])
                 T = T + jnp.einsum("ck,cks->cs", W[:, None] * hvm,
-                                   onehot.astype(vals.dtype))
+                                   onehot.astype(vals.dtype),
+                                   precision=lax.Precision.HIGHEST)
                 return T, dlump
 
             T0 = jnp.zeros((chunk, Kc), vals.dtype)
@@ -784,7 +775,8 @@ def _interp_exti_mp(mesh, axis, vals, ecols, S, state, cmapg, sidx,
                           == jnp.arange(Kce, dtype=jnp.int32)[None, None,
                                                               :])
                 T = T + jnp.einsum("ck,cks->cs", Wt[:, None] * hvm,
-                                   onehot.astype(vals.dtype))
+                                   onehot.astype(vals.dtype),
+                                   precision=lax.Precision.HIGHEST)
                 return T, dlump, backflow
 
             z = jnp.zeros((chunk,), vals.dtype)

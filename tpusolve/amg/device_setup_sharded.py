@@ -1,10 +1,10 @@
-"""Sharded (multi-chip) device-side fine-level AMG setup.
+"""Sharded (multi-device) device-side fine-level AMG setup.
 
-``device_setup.device_level0`` runs the fine level on ONE chip; the
-north-star problems (BASELINE.json: 100M rows on a v5p-8) shard the fine
+``device_setup.device_level0`` runs the fine level on ONE device; the
+north-star problems (BASELINE.json: 100M rows) shard the fine
 operator over a device mesh.  This module runs the same offset-lattice
 algebra on every part simultaneously, with part seams handled by explicit
-z/y/x halo exchanges (``lax.ppermute`` under ``shard_map`` — the TPU-native
+z/y/x halo exchanges (``lax.ppermute`` under ``shard_map`` — the
 analog of the reference's distributed BoomerAMGSetup neighbor exchanges,
 src/HypreSystem.cpp:692 with hypre's comm pkg underneath).
 
@@ -55,11 +55,8 @@ from tpusolve.mesh import fetch_host as _fetch
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        sm = jax.shard_map
-    except AttributeError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map as sm
-    return sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs)
 
 
 # ----------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 BoomerAMG's default relaxations are Gauss-Seidel hybrids (``relax_type`` 6 /
 8, ref: src/HypreSystem.cpp:127-151, yaml etc/hypre_app.yaml:37) which are
-inherently sequential.  The TPU-native policy substitutes the
+inherently sequential.  The device policy substitutes the
 data-parallel smoothers the AMG literature blesses for SIMD hardware
 (BASELINE.md north star explicitly allows this):
 
@@ -150,7 +150,7 @@ RELAX_MAP = {
 
 
 def resolve_relax(relax_type: int):
-    """reference relax_type code -> (tpu smoother kind, substitution note)."""
+    """reference relax_type code -> (device smoother kind, substitution note)."""
     if relax_type not in RELAX_MAP:
         raise ValueError(f"unsupported relax_type {relax_type}")
     return RELAX_MAP[relax_type]

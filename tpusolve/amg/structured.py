@@ -1,7 +1,7 @@
 """PFMG-style structured multigrid for box-generated operators.
 
 HYPRE answers structured problems with its Struct/PFMG solvers rather than
-BoomerAMG; this module is the TPU-native analog for operators produced by
+BoomerAMG; this module is the device analog for operators produced by
 the stencil generator (``A.dia_shape`` of rank 3):
 
 * **geometric coarsening**: each device's box halves per dim (domain-
@@ -11,8 +11,8 @@ the stencil generator (``A.dia_shape`` of rank 3):
   reshape/slice box ops under ``shard_map`` (no sparse matrices, no
   gathers — the restriction is the exact adjoint of the prolongation);
 * **Galerkin coarse operators**: host RAP (exact), re-assembled as
-  box-consistent DIA matrices, so *every* level's SpMV runs at the
-  speed-of-light path;
+  box-consistent DIA matrices, so *every* level's SpMV takes the
+  streaming DIA path;
 * smoothers/coarse solve shared with the algebraic builder.
 
 Convergence note: domain-decomposed coarsening with clamped near-boundary
@@ -72,10 +72,8 @@ def _p_box(box: tuple) -> sp.csr_matrix:
 # device-side transfers (shard_map over local boxes)
 def _interleave(even, odd, axis):
     """out[2i] = even[i], out[2i+1] = odd[i] via interior (dilation)
-    padding + add.  A stack-to-(..., n, 2)-and-reshape formulation
-    materializes a temp whose trailing dim of 2 the TPU tiles to 128 —
-    a 64x padded copy (13.5 GB at 384^3, compile-time OOM; measured
-    r5)."""
+    padding + add, which writes the output once (a stack-to-(..., n,
+    2)-and-reshape formulation materializes an extra temp)."""
     rank = even.ndim
     cfg_e = [(0, 0, 0)] * rank
     cfg_e[axis] = (0, 1, 1)

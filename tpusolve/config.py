@@ -76,7 +76,7 @@ class SolverConfig:
     print_level: int = 1
     num_tests: int = 1
     csv_profile_file: str | None = None
-    # kernel-implementation selection, the TPU analog of the reference's
+    # kernel-implementation selection, the analog of the reference's
     # vendor-kernel toggles (ref: src/main.cpp:127-156): allow the DIA
     # fast layout at assembly, and the block-ELL (BELL) unstructured fast
     # path (else padded-ELL gather everywhere)
@@ -91,8 +91,9 @@ class SolverConfig:
     # keep the preconditioner/solver across the num_tests loop (key present
     # in the reference's yaml surface, etc/hypre_app.yaml:21)
     reuse_preconditioner: bool = False
-    # precision policy: "double" matches the reference's f64; "single" is the
-    # TPU-native default path with f32 + compensated reductions
+    # precision policy: "double" matches the reference's f64; "single" runs
+    # f32 with compensated reductions; "mixed" is f32 inner solves under
+    # f64 iterative refinement
     precision: str = "double"
     extra: dict = field(default_factory=dict)
 
@@ -100,14 +101,14 @@ class SolverConfig:
 @dataclass
 class BoomerAMGConfig:
     # Full key surface of setup_boomeramg_precond (ref: src/HypreSystem.cpp:119-326).
-    # Type-code semantics follow HYPRE; TPU-infeasible codes are mapped to the
+    # Type-code semantics follow HYPRE; sequential codes are mapped to the
     # nearest parallel-friendly algorithm and reported (see amg/builder.py).
     print_level: int = 1
     max_iterations: int = 1
     tolerance: float = 0.0
     coarsen_type: int = 8          # ref default 8=PMIS (:126); yaml example 6=Falgout
     cycle_type: int = 1            # 1=V, 2=W
-    relax_type: int = 6            # GS-family codes → l1-Jacobi/Chebyshev on TPU
+    relax_type: int = 6            # GS-family codes → l1-Jacobi/Chebyshev
     relax_order: int = 0           # 1 = CF ordering
     relax_down: int | None = None  # per-phase relax types (ref :129-151)
     relax_up: int | None = None
@@ -133,13 +134,13 @@ class BoomerAMGConfig:
     smooth_type: int | None = None
     smooth_num_sweeps: int = 1
     smooth_num_levels: int = 0
-    # TPU extension (no reference analog): value dtype for the SMOOTHER
-    # matvecs only — "bfloat16" halves smoother HBM traffic inside the
+    # extension (no reference analog): value dtype for the SMOOTHER
+    # matvecs only — "bfloat16" halves smoother memory traffic inside the
     # V-cycle (residual/transfer matvecs keep the solve dtype; the cycle
     # is a preconditioner, so reduced smoother precision costs at most a
     # few Krylov iterations, never correctness)
     smoother_dtype: str = "match"   # match | bfloat16
-    # Chebyshev smoother options (TPU-native relax path)
+    # Chebyshev smoother options (parallel relax path)
     cheby_order: int = 2
     cheby_fraction: float = 0.3
     cheby_variant: int = 0     # 0 = classical third-kind; 4 = fourth-kind
@@ -158,7 +159,7 @@ class ILUConfig:
     ilu_tolerance: float = 0.0
     ilu_local_reordering: int = 0
     ilu_print_level: int = 0
-    ilu_tri_solve: int = 0         # 0 = Jacobi-iteration trisolve (TPU path, ref :363)
+    ilu_tri_solve: int = 0         # 0 = Jacobi-iteration trisolve (device path, ref :363)
     ilu_lower_jacobi_iters: int = 5
     ilu_upper_jacobi_iters: int = 5
     ilu_iterative_setup_type: int = 0

@@ -1,4 +1,4 @@
-"""CLI driver — the TPU-native main().
+"""CLI driver — the main() of the rebuild.
 
 Mirrors the reference driver (src/main.cpp:31-229)::
 
@@ -35,8 +35,7 @@ def main(argv=None) -> int:
     if cfg.solver.precision in ("double", "mixed"):
         # mixed runs its refinement residuals in f64
         jax.config.update("jax_enable_x64", True)
-    # persistent XLA compilation cache: repeat runs skip the (tens of
-    # seconds per kernel on remote-compile backends) compile phase
+    # persistent XLA compilation cache: repeat runs skip the compile phase
     from tpusolve.runtime import enable_compile_cache
     enable_compile_cache(cfg.solver.extra.get("compilation_cache_dir"))
 

@@ -3,7 +3,7 @@
 Analog of the reference's ``checkMemory`` (cuda/hipMemGetInfo + device
 properties printed at each lifecycle stage, ref: src/HypreSystem.cpp:638-671,
 call sites src/main.cpp:175-177).  Uses ``device.memory_stats()`` where the
-backend provides it (TPU does; CPU does not).
+backend provides it (GPUs do; the CPU does not).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Device-side ILU(0) setup for DIA-layout operators.
 
-TPU-native analog of the reference's iterative (rocSPARSE-style) ILU0
+Device analog of the reference's iterative (rocSPARSE-style) ILU0
 setup — the ``ilu_iterative_setup_*`` knobs at src/HypreSystem.cpp:352-361
 configure exactly this algorithm: Chow-Patel fixed-point sweeps, each one
 sparse product + elementwise update.  On a DIA-layout operator the masked
@@ -123,8 +123,8 @@ def make_factorizer(offsets, dims, sweeps):
                     (li[k1], ui[k2], decs[k1]))
 
     # one shared pad width per axis: the u stack is padded ONCE per sweep
-    # and every product term is a static slice of it (smaller HLO — remote
-    # TPU compile cost scales with op count)
+    # and every product term is a static slice of it (smaller HLO: compile
+    # time scales with op count)
     stack_pads = [max([1] + [abs(d[ax]) for d in decs])
                   for ax in range(len(dims))]
 
@@ -291,8 +291,9 @@ def make_ell_factorizer(R, K, sweeps, KL, KU, budget=1 << 27):
                                                                 None, :])
                     contrib = lpc[:, t][:, None] * jnp.where(member, bu,
                                                              0.0)
-                    return p + jnp.einsum("ck,cks->cs", contrib,
-                                          onehot.astype(dtype))
+                    return p + jnp.einsum(
+                        "ck,cks->cs", contrib, onehot.astype(dtype),
+                        precision=lax.Precision.HIGHEST)
 
                 p_c = lax.fori_loop(0, KL, t_body,
                                     jnp.zeros((chunk, K), dtype))

@@ -1,6 +1,6 @@
 """ILU(k) preconditioner with Jacobi triangular solves.
 
-TPU-native replacement for ``HYPRE_ILU*`` (consumed by the reference at
+JAX replacement for ``HYPRE_ILU*`` (consumed by the reference at
 src/HypreSystem.cpp:328-370 as preconditioner and :457-497 as solver).
 
 Two deliberately parallel-friendly algorithm choices, both of which the

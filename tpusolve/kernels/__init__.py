@@ -1,8 +1,7 @@
-"""TPU kernels: BDIA (blocked-DIA, Pallas) and BELL (block-ELL) SpMV.
+"""Local SpMV layouts for unstructured diag blocks: BDIA (blocked-DIA) and
+BELL (block-ELL), both plain XLA.
 
-The measurement study that justifies every layout/kernel decision in this
-package (and in matrix/sharded.py's assembly-time selection) lives in
-docs/KERNEL_STUDY.md.
+matrix/sharded.py chooses among them, DIA and padded ELL at assembly.
 """
 
 from tpusolve.kernels import bdia, bell  # noqa: F401

@@ -19,60 +19,35 @@ one (R,)-wide fused multiply-add:
 
     y[b*R : (b+1)*R] = sum_d vals[b, d] * x_pad[starts[b, d] : +R]
 
-**Zero per-element gathers.**  The x windows are fetched as B*D contiguous
-1 KB slices (a `vmap`'d ``dynamic_slice`` = ``lax.gather`` with
-``slice_sizes=(R,)``), which TPUs execute at streaming rate, and the
-multiply-reduce is full-lane-width VPU work — unlike narrow-tile schemes,
-which are issue-bound (measured: (8,16) mini-tiles ran 4x slower than
-their byte footprint).  Streamed bytes per SpMV ~ 2 * B*D*R * itemsize
-(vals + windows); effective bandwidth = CSR bytes / streamed bytes x HBM
-rate, set by the *slot fill* nnz / (B*D*R) the ordering provides (natural
-stencil order: 100% = global DIA; RCM'd meshes: tens of percent).
+**Zero per-element gathers.**  The x windows are B*D contiguous R-wide
+slices, so the SpMV streams ~ 2 * B*D*R * itemsize bytes (vals + windows;
+:func:`streamed_bytes`).  Its efficiency against CSR is set by the *slot
+fill* nnz / (B*D*R) the ordering provides (natural stencil order: 100% =
+global DIA; RCM'd meshes: tens of percent).
 
-Selection between BDIA and BELL (kernels/bell.py, for clustered-but-
-unbanded patterns) happens at assembly by comparing predicted streamed
-bytes; ``plan`` tries several block sizes.
+Selection between BDIA, BELL (kernels/bell.py) and padded ELL happens at
+assembly (matrix/sharded.py) by comparing streamed bytes; several block
+sizes are tried.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 
-BLOCK_SIZES = (2048, 1024, 512, 256, 128)  # candidate R values (multiples
-                               # of 128: the kernel works on (R/128, 128)
-                               # tiles; larger R = fewer per-slot overheads)
-
-# calibrated kernel model: measured once on v5e — with the slot loop fully
-# unrolled (D <= UNROLL_MAX) the kernel runs at stream rate (~12 ns/slot at
-# rr=8); the rolled loop pays ~87 ns/slot of scalar overhead.  Other
-# generations rescale by runtime.overhead_scale() (bandwidth ratio as the
-# clock proxy) and use their own HBM rate — see runtime.device_profile().
-UNROLL_MAX = 64
-SLOT_FIXED_NS = 40.0       # rolled-loop per-slot overhead (v5e)
-SLOT_PER_ROW_NS = 12.0     # per rr = R/128 (rolled, v5e)
-UNROLLED_SLOT_NS = 4.0
-UNROLLED_PER_ROW_NS = 1.0
+BLOCK_SIZES = (2048, 1024, 512, 256, 128)  # candidate R values
 
 
-def _per_slot_ns(D: int, R: int) -> float:
-    from tpusolve import runtime
-    if D <= UNROLL_MAX:
-        ns = UNROLLED_SLOT_NS + UNROLLED_PER_ROW_NS * R / 128.0
-    else:
-        ns = SLOT_FIXED_NS + SLOT_PER_ROW_NS * R / 128.0
-    return ns * runtime.overhead_scale()
-
-
-def model_time_s(B: int, D: int, R: int, itemsize: int) -> float:
-    """Predicted per-SpMV seconds for a (B, D, R) BDIA layout."""
-    from tpusolve import runtime
-    stream = 2.0 * B * D * R * itemsize / (runtime.hbm_gbps() * 1e9)
-    return max(stream, B * D * _per_slot_ns(D, R) * 1e-9)
+def streamed_bytes(B: int, D: int, R: int, itemsize: int, k_ovf: int = 0
+                   ) -> int:
+    """Bytes one SpMV streams for a (B, D, R) layout with ``k_ovf``
+    overflow entries: the coefficient rows, one equal-size x window per
+    slot, the int32 window starts, and per overflow entry its row, column,
+    value and gathered x."""
+    return (2 * B * D * R * itemsize + 4 * B * D
+            + k_ovf * (8 + 2 * itemsize))
 
 
 def plan_d(lr, lc, row_pad: int, col_pad: int, R: int) -> int:
@@ -116,17 +91,6 @@ def plan_fill_profile(lr, lc, row_pad: int, col_pad: int,
     maxrank = int(rank_sorted.max()) + 1
     return np.bincount(rank_sorted, weights=counts[order_u],
                        minlength=maxrank).astype(np.int64)
-
-
-# per-element cost of the overflow gather+scatter-add (XLA gather measured
-# ~9 ns/elem on v5e; scatter-add comparable — conservative combined figure)
-OVF_NS_PER_ELEM = 25.0
-
-
-def model_ovf_time_s(k: int) -> float:
-    """Predicted seconds for a k-entry overflow gather/scatter pass."""
-    from tpusolve import runtime
-    return k * OVF_NS_PER_ELEM * 1e-9 * runtime.overhead_scale()
 
 
 def compact(lr, lc, v, row_pad: int, col_pad: int, R: int, dmax: int,
@@ -189,9 +153,8 @@ def compact(lr, lc, v, row_pad: int, col_pad: int, R: int, dmax: int,
     keep = slot < dmax
     flat_idx = (lro[keep] // R * dmax + slot[keep]) * R + lro[keep] % R
     # unused slots: park them on a window near the block's own diagonal
-    # (vals are zero there, so any in-range window works) — parking at a
-    # *nearby* window keeps each block's window span tight, which the
-    # panel-streaming (XL) kernel relies on
+    # (vals are zero there, so any in-range window works; a nearby one
+    # keeps the block's x reads local)
     park = np.clip(np.arange(B, dtype=np.int64) * R, 0,
                    max(0, col_pad - R))
     parked = starts == _SENTINEL
@@ -217,263 +180,14 @@ def finalize_starts(starts: np.ndarray, col_pad: int, R: int):
 
 
 def bdia_spmv_local(vals, starts, x, xpad_lo: int, xlen: int, row_pad: int):
-    """Reference/XLA formulation (CPU tests): window reads via vmap'd
-    dynamic_slice.  XLA lowers this to an element gather — use the pallas
-    kernel on TPU (selected in matrix/spmv.py)."""
+    """XLA formulation: the window reads are a vmap'd ``dynamic_slice``
+    (an XLA gather with ``slice_sizes=(R,)``) feeding the multiply-reduce
+    over slots.  XLA fuses pad, gather, multiply and reduce into one
+    kernel, so the (B, D, R) window array never reaches device memory."""
     B, D, R = vals.shape
     xp = jnp.pad(x, (xpad_lo, max(0, xlen - xpad_lo - x.shape[0])))
     win = jax.vmap(lambda s: lax.dynamic_slice(xp, (s,), (R,)))(
         starts.reshape(-1))
     win = win.reshape(B, D, R)
     y = jnp.sum(vals * win, axis=1)
-    return y.reshape(-1)[:row_pad]
-
-
-try:  # pallas import kept optional: CPU test environments lack Mosaic
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
-
-LANE = 128
-
-# x64-proof index-map constant: a python-int 0 in a BlockSpec index map
-# traces as an i64 under jax_enable_x64, and Mosaic cannot legalize the
-# (i32, i64) index-map return
-_I0 = np.int32(0)
-
-
-# R-row blocks processed per pallas grid step (SMEM/VMEM block shapes need
-# a sublane-divisible leading dim)
-_PALLAS_GB = 8
-
-
-def _bdia_kernel(starts_ref, x2d_ref, vals_ref, out_ref, *, d: int, rr: int,
-                 gb: int):
-    """One grid step = ``gb`` R-row blocks (R = rr * 128).
-
-    Per offset slot: one dynamic-row-start (rr+1, 128) read of x from VMEM,
-    one dynamic lane rotation (pltpu.roll) to align the window start, a
-    two-way select for the sublane carry, and a full-width FMA.  The vals
-    stream (B, D, R) is the only HBM traffic, double-buffered by the grid
-    pipeline; zero per-element gathers anywhere."""
-    lanes = lax.broadcasted_iota(jnp.int32, (rr, LANE), 1)
-
-    def block(g, _):
-        def slot(dd, acc):
-            s = starts_ref[g, dd]
-            # starts are non-negative: truncated lax.div/rem avoid jnp's
-            # sign-correction ops (whose pvary has no Pallas lowering)
-            lane = jnp.int32(LANE)
-            row = lax.div(s, lane)
-            rem = lax.rem(s, lane)
-            seg = x2d_ref[pl.ds(row, rr + 1), :]          # (rr+1, 128)
-            rot = pltpu.roll(seg, lax.rem(lane - rem, lane), 1)
-            win = jnp.where(lanes < LANE - rem, rot[:rr], rot[1:rr + 1])
-            v = vals_ref[g, dd].reshape(rr, LANE)
-            return acc + v * win
-        # Mosaic supports only full unrolling; do it (as a python loop, so
-        # no loop carry exists at all) for moderate D — it removes the
-        # per-slot scalar loop overhead and lets the compiler pipeline the
-        # slots (measured 10x on v5e: 73 -> 702 GB/s effective).  Loop
-        # carries must be int32: under jax_enable_x64, python-int bounds
-        # trace as i64 counters, which Mosaic cannot legalize.
-        acc = jnp.zeros((rr, LANE), vals_ref.dtype)
-        if d <= UNROLL_MAX:
-            for dd in range(d):
-                acc = slot(jnp.int32(dd), acc)
-        else:
-            acc = lax.fori_loop(jnp.int32(0), jnp.int32(d), slot, acc)
-        out_ref[g] = acc.reshape(-1)
-        return _
-
-    lax.fori_loop(jnp.int32(0), jnp.int32(gb), block, None)
-
-
-def _pow2ceil(x: int) -> int:
-    return 1 << max(0, int(x) - 1).bit_length()
-
-
-def plan_panels(starts_adj: np.ndarray, R: int, gb: int = _PALLAS_GB):
-    """Panel plan for the XL (x-streaming) kernel.
-
-    For each grid step (``gb`` consecutive R-row blocks) the kernel DMAs one
-    contiguous panel of the lane-matrix view of x from HBM into VMEM; this
-    works because banded (RCM-ordered) matrices keep every block's window
-    starts within a narrow span.  Returns ``(rowstart, pxrows, xrows_min)``:
-    per-step first panel row (int32, one per step plus a trailing repeat for
-    the prefetch lookahead), the pow2-padded panel height, and the minimum
-    padded row count of the x lane-matrix.
-    """
-    B, D = starts_adj.shape
-    rr = R // LANE
-    Bp = ((B + gb - 1) // gb) * gb
-    if Bp != B:  # pad with the last block's starts (keeps spans tight)
-        starts_adj = np.concatenate(
-            [starts_adj, np.repeat(starts_adj[-1:], Bp - B, axis=0)])
-    rows = (starts_adj // LANE).reshape(-1, gb, D)
-    min_r = rows.min(axis=(1, 2))
-    max_r = rows.max(axis=(1, 2))
-    span = int((max_r - min_r).max()) + rr + 1
-    pxrows = max(8, _pow2ceil(span))
-    rowstart = np.concatenate([min_r, min_r[-1:]]).astype(np.int32)
-    xrows_min = int(rowstart.max()) + pxrows
-    return rowstart, pxrows, xrows_min
-
-
-def model_time_xl_s(B: int, D: int, R: int, pxrows: int, itemsize: int,
-                    gb: int = _PALLAS_GB) -> float:
-    """Predicted per-SpMV seconds for the XL layout: vals stream once,
-    plus one x panel per grid step."""
-    from tpusolve import runtime
-    nsteps = (B + gb - 1) // gb
-    stream = (B * D * R + nsteps * pxrows * LANE) * itemsize / \
-        (runtime.hbm_gbps() * 1e9)
-    return max(stream, B * D * _per_slot_ns(D, R) * 1e-9)
-
-
-def _bdia_kernel_xl(rowstart_ref, starts_ref, vals_ref, x_hbm_ref, out_ref,
-                    xbuf, sem, *, d: int, rr: int, gb: int, pxrows: int,
-                    nsteps: int):
-    """XL grid step: DMA this step's x panel (double-buffered: the next
-    step's panel is prefetched during compute), then the same per-slot
-    rotate-FMA as the whole-x kernel with rows rebased to the panel."""
-    i = pl.program_id(0)
-    two = jnp.int32(2)
-    one = jnp.int32(1)
-    slot = lax.rem(i, two)
-
-    def dma(j, s):
-        return pltpu.make_async_copy(
-            x_hbm_ref.at[pl.ds(rowstart_ref[j], pxrows), :],
-            xbuf.at[s], sem.at[s])
-
-    @pl.when(i == 0)
-    def _warm():
-        # int32 indices: python-int 0 traces as i64 under jax_enable_x64,
-        # which Mosaic's memref_slice rejects
-        dma(jnp.int32(0), jnp.int32(0)).start()
-
-    @pl.when(i + one < nsteps)
-    def _prefetch():
-        dma(i + one, lax.rem(i + one, two)).start()
-
-    dma(i, slot).wait()
-
-    base = rowstart_ref[i]
-    lanes = lax.broadcasted_iota(jnp.int32, (rr, LANE), 1)
-
-    def block(g, _):
-        def slotf(dd, acc):
-            s = starts_ref[g, dd]
-            lane = jnp.int32(LANE)
-            row = lax.div(s, lane) - base
-            rem = lax.rem(s, lane)
-            seg = xbuf[slot, pl.ds(row, rr + 1), :]       # (rr+1, 128)
-            rot = pltpu.roll(seg, lax.rem(lane - rem, lane), 1)
-            win = jnp.where(lanes < LANE - rem, rot[:rr], rot[1:rr + 1])
-            v = vals_ref[g, dd].reshape(rr, LANE)
-            return acc + v * win
-        acc = jnp.zeros((rr, LANE), vals_ref.dtype)
-        if d <= UNROLL_MAX:   # full unroll as a python loop (see _bdia_kernel)
-            for dd in range(d):
-                acc = slotf(jnp.int32(dd), acc)
-        else:
-            acc = lax.fori_loop(jnp.int32(0), jnp.int32(d), slotf, acc)
-        out_ref[g] = acc.reshape(-1)
-        return _
-    lax.fori_loop(jnp.int32(0), jnp.int32(gb), block, None)
-
-
-def bdia_spmv_pallas_xl(vals, starts, rowstart, pxrows: int, xrows: int, x,
-                        xpad_lo: int, xlen: int, row_pad: int,
-                        interpret: bool = False, vma=None):
-    """Panel-streaming BDIA SpMV: x lives in HBM; each grid step DMAs the
-    panel covering its blocks' windows.  Lifts the whole-x kernel's
-    x-fits-in-VMEM (~12 MB => ~3M f32 rows/shard) limit to gate-3 shard
-    sizes (10M+ rows) for banded matrices.  ``xrows`` is the static padded
-    row count of the x lane-matrix (>= plan_panels xrows_min)."""
-    if not HAVE_PALLAS:  # pragma: no cover
-        return bdia_spmv_local(vals, starts, x, xpad_lo, xlen, row_pad)
-    B, D, R = vals.shape
-    rr = R // LANE
-    gb = _PALLAS_GB
-    Bp = ((B + gb - 1) // gb) * gb
-    nsteps = Bp // gb
-    if Bp != B:
-        vals = jnp.pad(vals, ((0, Bp - B), (0, 0), (0, 0)))
-        # pad with the last block's starts: inside its step's panel
-        starts = jnp.concatenate(
-            [starts, jnp.repeat(starts[-1:], Bp - B, axis=0)])
-    xp = jnp.pad(x, (xpad_lo, max(0, xlen - xpad_lo - x.shape[0])))
-    xp = jnp.pad(xp, (0, xrows * LANE - xp.shape[0]))
-    x2d = xp.reshape(xrows, LANE)
-    y = pl.pallas_call(
-        functools.partial(_bdia_kernel_xl, d=D, rr=rr, gb=gb,
-                          pxrows=pxrows, nsteps=nsteps),
-        grid=(nsteps,),
-        in_specs=[
-            # whole-array specs carry explicit int32 index maps (a default
-            # map's python-int 0 traces as i64 under x64 — Mosaic rejects it)
-            pl.BlockSpec(rowstart.shape, lambda i: (_I0,),
-                         memory_space=pltpu.SMEM),       # rowstart whole
-            pl.BlockSpec((gb, D), lambda i: (i, _I0),
-                         memory_space=pltpu.SMEM),       # window starts
-            pl.BlockSpec((gb, D, R), lambda i: (i, _I0, _I0),
-                         memory_space=pltpu.VMEM),       # coefficient stream
-            pl.BlockSpec((xrows, LANE), lambda i: (_I0, _I0),
-                         memory_space=pl.ANY),           # x2d stays in HBM
-        ],
-        out_specs=pl.BlockSpec((gb, R), lambda i: (i, _I0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Bp, R), vals.dtype,
-                                       vma=frozenset(vma) if vma else None),
-        scratch_shapes=[
-            pltpu.VMEM((2, pxrows, LANE), vals.dtype),   # panel double-buffer
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-    )(rowstart, starts, vals, x2d)
-    return y.reshape(-1)[:row_pad]
-
-
-def bdia_spmv_pallas(vals, starts, x, xpad_lo: int, xlen: int, row_pad: int,
-                     interpret: bool = False, vma=None):
-    """Pallas formulation: x whole in VMEM (as a (rows, 128) matrix), the
-    per-block coefficient slabs streamed from HBM."""
-    if not HAVE_PALLAS:  # pragma: no cover
-        return bdia_spmv_local(vals, starts, x, xpad_lo, xlen, row_pad)
-    B, D, R = vals.shape
-    rr = R // LANE
-    gb = _PALLAS_GB
-    Bp = ((B + gb - 1) // gb) * gb
-    if Bp != B:
-        # extra blocks carry zero vals and window-0 starts — harmless reads
-        vals = jnp.pad(vals, ((0, Bp - B), (0, 0), (0, 0)))
-        starts = jnp.pad(starts, ((0, Bp - B), (0, 0)))
-    xp = jnp.pad(x, (xpad_lo, max(0, xlen - xpad_lo - x.shape[0])))
-    # pad up to whole lanes plus rr+1 guard rows for the widest read
-    xrows = (xp.shape[0] + LANE - 1) // LANE + rr + 1
-    xp = jnp.pad(xp, (0, xrows * LANE - xp.shape[0]))
-    x2d = xp.reshape(xrows, LANE)
-    y = pl.pallas_call(
-        functools.partial(_bdia_kernel, d=D, rr=rr, gb=gb),
-        grid=(Bp // gb,),
-        in_specs=[
-            pl.BlockSpec((gb, D), lambda i: (i, _I0),
-                         memory_space=pltpu.SMEM),      # window starts
-            # x2d whole: the index map is explicit so no python-int (i64
-            # under x64) default map reaches Mosaic
-            pl.BlockSpec((xrows, LANE), lambda i: (_I0, _I0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((gb, D, R), lambda i: (i, _I0, _I0),
-                         memory_space=pltpu.VMEM),      # coefficient stream
-        ],
-        out_specs=pl.BlockSpec((gb, R), lambda i: (i, _I0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Bp, R), vals.dtype,
-                                       vma=frozenset(vma) if vma else None),
-        interpret=interpret,
-    )(starts, x2d, vals)
     return y.reshape(-1)[:row_pad]

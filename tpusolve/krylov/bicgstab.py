@@ -1,6 +1,6 @@
 """Preconditioned BiCGSTAB for non-symmetric systems (momentum equations).
 
-TPU-native replacement for ``HYPRE_ParCSRBiCGSTAB*`` (consumed by the
+JAX replacement for ``HYPRE_ParCSRBiCGSTAB*`` (consumed by the
 reference at src/HypreSystem.cpp:423-438).  Right-preconditioned van der
 Vorst BiCGSTAB; two matvecs + two preconditioner applications per iteration,
 all reductions fused by XLA into psum collectives.  Operator/preconditioner

@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients.
 
-TPU-native replacement for ``HYPRE_ParCSRPCG*`` (consumed by the reference at
+JAX replacement for ``HYPRE_ParCSRPCG*`` (consumed by the reference at
 src/HypreSystem.cpp:440-455).  Jitted ``lax.while_loop``; the two dot products
 per iteration become ``psum`` collectives over the mesh.
 

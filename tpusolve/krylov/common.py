@@ -2,7 +2,7 @@
 
 Solvers operate on global padded sharded vectors; dot products and norms are
 plain ``jnp`` reductions — XLA's SPMD partitioner turns them into ``psum``
-over ICI (the analog of the ``MPI_Allreduce`` inside HYPRE's Krylov kernels).
+across the mesh (the analog of the ``MPI_Allreduce`` inside HYPRE's Krylov kernels).
 The padding invariant (padded entries exactly 0) makes reductions mask-free.
 
 Each solver follows the reference's setup/solve split
@@ -66,9 +66,8 @@ def as_precond(M) -> Callable:
 # Operator protocol: (static_fn, state_pytree) with y = static_fn(state, x).
 #
 # Operators MUST flow into jitted solvers as *arguments*, never as closure
-# captures: JAX inlines closed-over arrays as HLO constants, which (a)
-# bloats executables and (b) overflows remote-compile payload limits for
-# GB-scale hierarchies (observed: HTTP 413 on a 128^3 multigrid solve).
+# captures: JAX inlines closed-over arrays as HLO constants, which bloats
+# executables by the size of a GB-scale hierarchy.
 
 def _identity_fn(_, r):
     return r

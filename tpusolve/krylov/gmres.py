@@ -1,13 +1,14 @@
 """Restarted GMRES family: GMRES, COGMRES, FlexGMRES.
 
-TPU-native replacements for ``HYPRE_ParCSRGMRES*`` (+``SetKDim`` restart,
+JAX replacements for ``HYPRE_ParCSRGMRES*`` (+``SetKDim`` restart,
 ref: src/HypreSystem.cpp:390-404), ``HYPRE_ParCSRCOGMRES*`` (+``SetCGS``,
 ref: :372-388) and ``HYPRE_ParCSRFlexGMRES*`` (ref: :406-421).
 
-Design notes (TPU-first):
+Design notes:
 
 * Orthogonalization is **batched classical Gram-Schmidt**: the projection
-  ``h = V w`` is a single (m+1, n) x (n,) matmul — one fused global
+  ``h = V w`` is a single (m+1, n) x (n,) product at full float32
+  precision (no TF32) — one fused global
   reduction per iteration, which is exactly the communication-avoiding
   property COGMRES exists for (the reference ships COGMRES for this reason).
   ``cgs=2`` re-orthogonalizes once (CGS2), matching ``HYPRE_COGMRESSetCGS``'s
@@ -33,6 +34,12 @@ from tpusolve.krylov.common import (
     SolveResult, as_operator_pair, as_precond_pair, norm, safe_div,
     stop_target, history_buffer)
 
+
+
+def _dot(a, b):
+    """Full-precision contraction: a float32 product at default precision
+    may run in TF32 (about 10 mantissa bits) on GPUs."""
+    return jnp.dot(a, b, precision=lax.Precision.HIGHEST)
 
 def _givens(a, b):
     """Givens rotation zeroing b: returns (c, s, r) with c*a + s*b = r."""
@@ -72,11 +79,11 @@ def _gmres_cycle(matvec, precond, m, cgs, flexible, b, x, target, dtype,
             Z = Z.at[j].set(z)
 
         # batched classical Gram-Schmidt: one fused reduction
-        h = V @ w                       # rows > j are zero => h[k>j] = 0
-        w = w - h @ V
+        h = _dot(V, w)                  # rows > j are zero => h[k>j] = 0
+        w = w - _dot(h, V)
         if cgs >= 2:                    # CGS2 re-orthogonalization
-            h2 = V @ w
-            w = w - h2 @ V
+            h2 = _dot(V, w)
+            w = w - _dot(h2, V)
             h = h + h2
         hj1 = norm(w)
         V = V.at[j + 1].set(
@@ -119,9 +126,9 @@ def _gmres_cycle(matvec, precond, m, cgs, flexible, b, x, target, dtype,
     y = jax.scipy.linalg.solve_triangular(R, gk, lower=False)
 
     if flexible:
-        dx = y @ Z
+        dx = _dot(y, Z)
     else:
-        dx = precond(y @ V[:m])
+        dx = precond(_dot(y, V[:m]))
     return x + dx, res, k, hist
 
 

@@ -1,8 +1,9 @@
 """Mixed-precision iterative refinement.
 
-HYPRE runs everything in f64; TPU f64 is emulated and slow, so the
-TPU-native path (SURVEY.md section 7 "hard parts": plan f32 with iterative
-refinement to hit rtol 1e-8) is classical IR:
+HYPRE runs everything in f64.  ``precision: mixed`` keeps the
+preconditioner and Krylov sweeps in f32, which stream half the bytes, and
+recovers f64 accuracy by classical IR (SURVEY.md section 7 "hard parts":
+f32 with iterative refinement to hit rtol 1e-8):
 
     repeat:  r = b - A x        (high precision)
              solve A d = r      (f32 Krylov + preconditioner)

@@ -3,7 +3,7 @@
 Used for AMG-as-solver (ref: setup_boomeramg_solver,
 src/HypreSystem.cpp:91-117) and ILU-as-solver (ref: setup_ilu,
 src/HypreSystem.cpp:457-497).  One jitted ``while_loop`` — never op-by-op
-dispatch (each eager op is a full round-trip on remote TPU backends).
+dispatch (one host round-trip per eager op).
 """
 
 from __future__ import annotations

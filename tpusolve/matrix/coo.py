@@ -1,6 +1,6 @@
 """Host-side COO staging: sort, deduplicate, owner-bucket.
 
-This is the TPU-native replacement for HYPRE's IJ assembly semantics
+This is the replacement for HYPRE's IJ assembly semantics
 (``HYPRE_IJMatrixSetValues2`` / ``AddToValues2`` / ``Assemble``, ref:
 src/HypreSystem.cpp:897-955, 1567-1573, 600-636): entries may arrive for any
 global (row, col) in any order with duplicates; assembly routes each entry to

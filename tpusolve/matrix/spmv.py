@@ -5,20 +5,19 @@ performs inside every Krylov iteration and AMG cycle (consumed by the
 reference through ``HYPRE_ParCSRMatrix``; vendor-SpMV toggle ref:
 src/main.cpp:137-145).
 
-Design (TPU-first):
+Design:
 
 * ``shard_map`` over the matrix's 1-D mesh axis; each device sees its own
   blocks;
 * halo exchange = gather of the statically planned send entries followed by
-  **one** ``lax.all_to_all`` over ICI (replacing HYPRE's MPI neighbor
-  point-to-point machinery);
+  **one** ``lax.all_to_all`` over the mesh axis (replacing HYPRE's MPI
+  neighbor point-to-point machinery);
 * **DIA local kernel** (structured matrices — chosen at assembly): each
   stored diagonal contributes one statically-shifted fused multiply-add.
-  Zero gathers, no index traffic: the matrix bytes stream once at HBM
-  speed of light.  Random gathers are pathologically slow on TPU (measured
-  ~9 ns/element through XLA gather on v5e — ~800x slower than streaming,
-  independent of column locality), making this layout the difference
-  between speed-of-light and unusable;
+  No gathers and no index traffic: the matrix bytes stream once;
+* **BDIA / BELL local kernels** (unstructured but banded or clustered
+  blocks, kernels/): contiguous x-window reads instead of per-element
+  gathers;
 * **ELL local kernel** (general fallback): two gathers + multiply-reduce
   over the padded row width.
 """
@@ -32,28 +31,17 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
-# Local-kernel implementation for BELL matrices: "xla" (row-gather +
-# batched contraction) or "pallas" (x-in-VMEM Mosaic kernel).  Default
-# chosen by measurement on v5e (see kernels/bell.py docstring).
-BELL_IMPL = "xla"
+shard_map = jax.shard_map
 
 # Halo/compute overlap: when True the halo all_to_all is issued before the
 # interior sweep with no data dependence between them, letting XLA's
-# async-collective scheduler run the ICI transfer under the local compute
+# async-collective scheduler run the transfer under the local compute
 # (the comm-pkg overlap of the reference's generator,
 # ref: laplace_3d_weak_scaling.hpp:412-602).  False serializes them with an
 # optimization_barrier.  Read at trace time.
 #
-# Default OFF: no multi-chip hardware has been available to measure the
-# overlap (the virtual-mesh weak-scaling runs cannot exercise ICI — see
-# tools/weakscale.py), and an unmeasured scheduling default on the hottest
-# kernel is not worth the risk.  Flip to True (or measure with
-# tools/weakscale.py on a real slice) once evidence exists.
+# Default OFF until the overlap has been measured across real cards
+# (tools/weakscale.py).
 HALO_OVERLAP = False
 
 
@@ -84,8 +72,8 @@ def dia_spmv_local(dia_vals, offsets, dia_shape, x):
 
     With ``dia_shape=(rows, lanes)`` (box-consistent offsets, e.g. the
     stencil's (nz*ny, nx)), each offset decomposes as a whole-row shift plus
-    a small minor-dim shift and the slices stay lane-aligned: measured ~98%
-    of HBM speed-of-light on v5e vs ~10% for the 1-D form.
+    a small minor-dim shift, so every slice is a contiguous box read; the
+    1-D form instead shifts the flat vector by arbitrary offsets.
     """
     if dia_shape is not None:
         dims = tuple(dia_shape)
@@ -167,18 +155,13 @@ def _ovf_wrap(interior, ovf):
     return fn
 
 
-def _spmv_shard_bdia(axis, xpad, xlen, row_pad, has_offd, impl, has_ovf,
+def _spmv_shard_bdia(axis, xpad, xlen, row_pad, has_offd, has_ovf,
                      bv, bs, ov, oc, sidx, gslot, x_loc, *ovf_args):
     from tpusolve.kernels import bdia as bdia_mod
     bv, bs, ov, oc, sidx, gslot = (a[0] for a in (bv, bs, ov, oc, sidx,
                                                   gslot))
-    if impl == "pallas":
-        interior = lambda x: bdia_mod.bdia_spmv_pallas(bv, bs, x, xpad,
-                                                       xlen, row_pad,
-                                                       vma=(axis,))
-    else:
-        interior = lambda x: bdia_mod.bdia_spmv_local(bv, bs, x, xpad,
-                                                      xlen, row_pad)
+    interior = lambda x: bdia_mod.bdia_spmv_local(bv, bs, x, xpad, xlen,
+                                                  row_pad)
     ovf = tuple(a[0] for a in ovf_args) if has_ovf else None
     interior = _ovf_wrap(interior, ovf)
     if has_offd:
@@ -186,35 +169,11 @@ def _spmv_shard_bdia(axis, xpad, xlen, row_pad, has_offd, impl, has_ovf,
     return interior(x_loc)
 
 
-def _spmv_shard_bdia_xl(axis, xpad, xlen, row_pad, pxrows, xrows, has_offd,
-                        impl, has_ovf, bv, bs, rs, ov, oc, sidx, gslot,
-                        x_loc, *ovf_args):
-    from tpusolve.kernels import bdia as bdia_mod
-    bv, bs, rs, ov, oc, sidx, gslot = (
-        a[0] for a in (bv, bs, rs, ov, oc, sidx, gslot))
-    if impl == "pallas":
-        interior = lambda x: bdia_mod.bdia_spmv_pallas_xl(
-            bv, bs, rs, pxrows, xrows, x, xpad, xlen, row_pad, vma=(axis,))
-    else:
-        interior = lambda x: bdia_mod.bdia_spmv_local(bv, bs, x, xpad,
-                                                      xlen, row_pad)
-    ovf = tuple(a[0] for a in ovf_args) if has_ovf else None
-    interior = _ovf_wrap(interior, ovf)
-    if has_offd:
-        return _offd_add(axis, x_loc, interior, ov, oc, sidx, gslot)
-    return interior(x_loc)
-
-
-def _spmv_shard_bell(axis, nwin, row_pad, has_offd, impl, bv, bi, ov, oc,
-                     sidx, gslot, x_loc):
+def _spmv_shard_bell(axis, nwin, row_pad, has_offd, bv, bi, ov, oc, sidx,
+                     gslot, x_loc):
     from tpusolve.kernels import bell as bell_mod
     bv, bi, ov, oc, sidx, gslot = (a[0] for a in (bv, bi, ov, oc, sidx, gslot))
-    if impl == "pallas":
-        interior = lambda x: bell_mod.bell_spmv_pallas(bv, bi, x, nwin,
-                                                       row_pad, vma=(axis,))
-    else:
-        interior = lambda x: bell_mod.bell_spmv_local(bv, bi, x, nwin,
-                                                      row_pad)
+    interior = lambda x: bell_mod.bell_spmv_local(bv, bi, x, nwin, row_pad)
     if has_offd:
         return _offd_add(axis, x_loc, interior, ov, oc, sidx, gslot)
     return interior(x_loc)
@@ -244,33 +203,19 @@ def spmv(A, x):
         return fn(A.dia_vals, A.offd_vals, A.offd_cols,
                   A.send_idx, A.ghost_slot, x)
     if A.uses_bdia:
-        # lane-rotation pallas kernel on TPU; the XLA window-gather
-        # formulation elsewhere (CPU tests)
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
         has_ovf = A.bdia_ovf_vals is not None
         ovf = ((A.bdia_ovf_rows, A.bdia_ovf_cols, A.bdia_ovf_vals)
                if has_ovf else ())
-        if A.bdia_rowstart is not None:
-            # XL variant: x stays in HBM, panels DMA'd per grid step
-            fn = shard_map(
-                partial(_spmv_shard_bdia_xl, A.axis, A.bdia_xpad,
-                        A.bdia_xlen, A.row_pad, A.bdia_pxrows, A.bdia_xrows,
-                        A.has_offd, impl, has_ovf),
-                mesh=A.mesh, in_specs=(spec,) * (8 + len(ovf)),
-                out_specs=spec)
-            return fn(A.bdia_vals, A.bdia_starts, A.bdia_rowstart,
-                      A.offd_vals, A.offd_cols, A.send_idx, A.ghost_slot, x,
-                      *ovf)
         fn = shard_map(
             partial(_spmv_shard_bdia, A.axis, A.bdia_xpad, A.bdia_xlen,
-                    A.row_pad, A.has_offd, impl, has_ovf),
+                    A.row_pad, A.has_offd, has_ovf),
             mesh=A.mesh, in_specs=(spec,) * (7 + len(ovf)), out_specs=spec)
         return fn(A.bdia_vals, A.bdia_starts, A.offd_vals, A.offd_cols,
                   A.send_idx, A.ghost_slot, x, *ovf)
     if A.uses_bell:
         fn = shard_map(
             partial(_spmv_shard_bell, A.axis, A.bell_nwin, A.row_pad,
-                    A.has_offd, BELL_IMPL),
+                    A.has_offd),
             mesh=A.mesh, in_specs=(spec,) * 7, out_specs=spec)
         return fn(A.bell_vals, A.bell_ids, A.offd_vals, A.offd_cols,
                   A.send_idx, A.ghost_slot, x)

@@ -1,7 +1,7 @@
 """Native (C++) IO layer, loaded via ctypes.
 
-The shared library is compiled on first use with the system g++ and cached
-next to the source (analog of the reference's CMake-built parser objects);
+The shared library is compiled on first use with the system g++ into a
+build directory keyed by source, command and host CPU (analog of the reference's CMake-built parser objects);
 all callers fall back to pure-NumPy parsing when no toolchain is available.
 """
 

@@ -1,36 +1,80 @@
+"""Build-on-first-use for the native host libraries.
+
+Each library is compiled into ``_build/<name>-<key>/``, where the key hashes
+the source, the compiler command and this host's CPU (model and feature
+flags, which ``-march=native`` targets).  A binary built from other source,
+by another command or on another CPU therefore never matches and is never
+loaded.  Without a toolchain the callers fall back to NumPy.
+"""
+
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import sys
 import tempfile
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_DIR, "_build")
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
-def _compile(src: str, lib_path: str) -> str | None:
-    # atomic build: compile to a temp name, rename into place
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
-    os.close(fd)
-    base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-            src, "-o", tmp]
-    # prefer native codegen (vector ISA) but fall back for odd toolchains
-    for extra in (["-march=native", "-funroll-loops"], []):
-        cmd = base[:1] + extra + base[1:]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=240)
-            os.replace(tmp, lib_path)
-            return lib_path
-        except (OSError, subprocess.SubprocessError):
-            continue
+def host_cpu() -> str:
+    """Machine, CPU model and feature flags of this host."""
     try:
-        os.unlink(tmp)
+        with open("/proc/cpuinfo") as fh:
+            lines = fh.read().splitlines()
     except OSError:
-        pass
+        lines = []
+    keep = sorted({ln for ln in lines
+                   if ln.startswith(("model name", "flags", "Features",
+                                     "CPU part"))})
+    return "\n".join([platform.machine()] + keep)
+
+
+def build_key(src: str, cmd: list[str], cpu: str | None = None,
+              tag: str = "") -> str:
+    """Key of the binary ``cmd`` builds from ``src`` on CPU ``cpu``;
+    ``tag`` names anything else the binary depends on."""
+    h = hashlib.sha256()
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    for part in ("\0".join(cmd), host_cpu() if cpu is None else cpu, tag):
+        h.update(b"\0" + part.encode())
+    return h.hexdigest()[:20]
+
+
+def _keyed_build(name: str, src: str, cmds: list[list[str]],
+                 filename: str, tag: str = "") -> str | None:
+    """Path of a binary for ``src``, built by the first of ``cmds`` that
+    succeeds (each command ends with the output path, given as ``{out}``).
+    An existing binary is reused only under its own key."""
+    for cmd in cmds:
+        out_dir = os.path.join(BUILD_DIR,
+                               f"{name}-{build_key(src, cmd, tag=tag)}")
+        out = os.path.join(out_dir, filename)
+        if os.path.exists(out):
+            return out
+        os.makedirs(out_dir, exist_ok=True)
+        # atomic build: compile to a temp name, rename into place
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        try:
+            subprocess.run([tmp if a == "{out}" else a for a in cmd],
+                           check=True, capture_output=True, timeout=240)
+            os.replace(tmp, out)
+            return out
+        except (OSError, subprocess.SubprocessError):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
     return None
 
 
@@ -39,18 +83,18 @@ def load_native(name: str, configure) -> "ctypes.CDLL | None":
     None if the toolchain or source is unavailable (callers fall back to
     NumPy).  ``configure(lib)`` sets restype/argtypes."""
     src = os.path.join(_DIR, f"{name}.cpp")
-    lib_path = os.path.join(_DIR, f"lib{name}.so")
     with _lock:
         if name in _libs:
             return _libs[name]
         _libs[name] = None
-        # rebuild when the source is newer than the binary (a stale or
-        # foreign-arch .so would otherwise be silently preferred)
-        fresh = (os.path.exists(lib_path) and os.path.exists(src)
-                 and os.path.getmtime(lib_path) >= os.path.getmtime(src))
-        path = lib_path if fresh else _compile(src, lib_path)
-        if path is None and os.path.exists(lib_path):
-            path = lib_path  # no toolchain: fall back to the existing binary
+        if not os.path.exists(src):
+            return None
+        base = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", src,
+                "-o", "{out}"]
+        # prefer native codegen (vector ISA) but fall back for odd toolchains
+        path = _keyed_build(
+            name, src, [["g++", "-march=native", "-funroll-loops"] + base,
+                        ["g++"] + base], f"lib{name}.so")
         if path is None:
             return None
         try:
@@ -94,27 +138,24 @@ def get_npool():
         return _npool_mod[0]
     _npool_mod[1] = True
     src = os.path.join(_DIR, "npool.c")
-    lib_path = os.path.join(_DIR, "npool.so")
     try:
         import sysconfig
-        import numpy as np
-        fresh = (os.path.exists(lib_path) and os.path.exists(src)
-                 and os.path.getmtime(lib_path) >= os.path.getmtime(src))
-        if not fresh:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
-            os.close(fd)
-            cmd = ["gcc", "-O2", "-shared", "-fPIC",
-                   "-I" + sysconfig.get_paths()["include"],
-                   "-I" + np.get_include(), src, "-o", tmp]
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            os.replace(tmp, lib_path)
         import importlib.util
+        import numpy as np
+        cmd = ["gcc", "-O2", "-shared", "-fPIC",
+               "-I" + sysconfig.get_paths()["include"],
+               "-I" + np.get_include(), src, "-o", "{out}"]
+        # the module is built against this interpreter's and numpy's headers
+        path = _keyed_build("npool", src, [cmd], "npool.so",
+                            tag=f"{sys.version} numpy {np.__version__}")
+        if path is None:
+            return None
         # module name must match PyInit_npool
-        spec = importlib.util.spec_from_file_location("npool", lib_path)
+        spec = importlib.util.spec_from_file_location("npool", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         _npool_mod[0] = mod
-    except Exception:
+    except (OSError, ImportError):
         _npool_mod[0] = None
     return _npool_mod[0]
 

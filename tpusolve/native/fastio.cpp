@@ -1,6 +1,6 @@
 // fastio — native text parsers for the tpusolve IO layer.
 //
-// TPU-native counterpart of the reference's hot host-side readers: the
+// Counterpart of the reference's hot host-side readers: the
 // whole-file mmap MatrixMarket scan (ref: src/HypreSystem.cpp:1751-1835)
 // and the HYPRE-IJ fscanf loops (ref: src/HypreSystem.cpp:1203-1236).
 // Parses numeric triplet/pair/single-column text bodies at memory speed;
